@@ -15,6 +15,7 @@ import argparse
 
 from ..config import CTCInferenceParams
 from ..engine.infer import run_inference
+from ..utils.compile_cache import enable_compile_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,9 +74,6 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["float32", "bfloat16", "int8"])
     ap.add_argument("--state_dtype", type=str,
                     choices=["auto", "float32", "bfloat16"])
-    ap.add_argument("--fused_cell", action="store_true", default=None,
-                    help="whole-level fused ConvLSTM Pallas kernel where "
-                         "shapes allow (inference-only)")
     ap.add_argument("--digit_4", action="store_true", default=None)
     ap.add_argument("--reset_on_jump", type=float,
                     help="auto-reset LSTM state when the mean abs frame "
@@ -99,6 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = vars(build_parser().parse_args(argv))
+    enable_compile_cache()
     calibrate = args.pop("calibrate")
     recipe = args.pop("recipe")
     params = CTCInferenceParams()

@@ -193,30 +193,32 @@ class CTCRAMReaderSequence2D:
     @staticmethod
     def _apply_affine(img: np.ndarray, seg: np.ndarray, m: np.ndarray,
                       inst: Optional[np.ndarray] = None):
-        """Affine-warp a [T,H,W] window (image bilinear, labels nearest)."""
-        try:
-            import cv2
-        except Exception:
-            return img, seg, inst  # cv2-less hosts skip elastic augmentation
+        """Affine-warp a [T,H,W] window about its center (image bilinear,
+        labels nearest, reflected at the border).
+
+        ``m`` is a 2x3 forward map in (x, y) = (col, row) coordinates;
+        scipy pulls each output pixel from ``inverse(m)`` of it in
+        (row, col) order.
+        """
+        from scipy.ndimage import affine_transform
+
         h, w = img.shape[1:]
-        mm = m.copy()
-        # rotate/scale about the crop center
-        c = np.array([w / 2, h / 2], np.float32)
-        mm[:, 2] = c - mm[:, :2] @ c
+        swap = np.array([[0.0, 1.0], [1.0, 0.0]])
+        a_rc = swap @ m[:, :2].astype(np.float64) @ swap
+        inv = np.linalg.inv(a_rc)
+        center = np.array([h / 2, w / 2])
+        # rotate/scale about the crop center: src = center + inv (dst - center)
+        offset = center - inv @ center
 
-        def warp_labels(lab):
+        def warp(frames, order):
             return np.stack([
-                cv2.warpAffine(f.astype(np.float32), mm, (w, h),
-                               flags=cv2.INTER_NEAREST,
-                               borderMode=cv2.BORDER_REFLECT).astype(np.int32)
-                for f in lab])
+                affine_transform(f, inv, offset=offset, order=order,
+                                 mode="reflect") for f in frames])
 
-        img = np.stack([
-            cv2.warpAffine(f, mm, (w, h), flags=cv2.INTER_LINEAR,
-                           borderMode=cv2.BORDER_REFLECT) for f in img])
-        seg = warp_labels(seg)
+        img = warp(img, 1)
+        seg = warp(seg, 0)
         if inst is not None:
-            inst = warp_labels(inst)
+            inst = warp(inst, 0)
         return img, seg, inst
 
     def _window(self, s: _SequenceData, aug: Dict, start: int):

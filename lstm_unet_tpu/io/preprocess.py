@@ -46,11 +46,10 @@ def integer_percentile_bounds(x: jax.Array, low: float = 1.0,
                               high: float = 99.0):
     """Exact (low, high) percentiles of an INTEGER image in [0, 65535] —
     bit-identical to ``jnp.percentile(x.astype(f32), ...)`` (tested) but
-    computed from a 65536-bin MXU histogram + cumsum + searchsorted instead
-    of a full sort. Rationale (BASELINE.md r1): the sort costs ~3.5 ms
-    @512² in the streaming step; the histogram quantile was rejected then
-    because it is silently wrong for float inputs — dispatching on the
-    integer dtype (static under jit) removes that hazard entirely. Order
+    computed from a 65536-bin one-hot-matmul histogram + cumsum +
+    searchsorted instead of a full 512² sort. A histogram quantile is
+    silently wrong for float inputs — dispatching on the integer dtype
+    (static under jit) removes that hazard entirely. Order
     statistics of integers are exact in either method, and the final linear
     interpolation uses the same f32 arithmetic as jnp.percentile."""
     from ..ops.ccl import mm_histogram_u16

@@ -1,4 +1,4 @@
-"""ULSTMnet2D — recurrent ConvLSTM U-Net, TPU-native.
+"""ULSTMnet2D — recurrent ConvLSTM U-Net.
 
 Reference parity: ``Networks.py::ULSTMnet2D`` + ``DownBlock2D``/``UpBlock2D``
 (SURVEY.md §2 "Full model", §3.3 forward pass):
@@ -9,7 +9,7 @@ Reference parity: ``Networks.py::ULSTMnet2D`` + ``DownBlock2D``/``UpBlock2D``
 
 The only cross-frame dataflow is the per-level (h, c) ConvLSTM state
 (SURVEY.md §3.3), so the whole per-frame U-Net is the ``lax.scan`` body and
-the state is the scan carry — this is the TPU-native shape of the reference's
+the state is the scan carry — this is the functional shape of the reference's
 Keras stateful layers:
 
 - reference ``reset_states_per_batch(is_last)`` → ``reset_lanes`` (pure)
@@ -59,24 +59,14 @@ class ModelConfig:
     # The reference's use of BatchNorm is unverified [M — SURVEY.md §7
     # hard-part #4]; LayerNorm is the batch-size/sharding-independent choice.
     norm: str = "none"
-    # Measured on v5e (BASELINE.md): XLA fuses the gate activations/state
-    # update into the gate-conv epilogue; routing them through the Pallas
-    # kernel instead inserts a fusion barrier that materializes the 4F gate
-    # tensor in HBM and costs ~3x (109 vs 37 ms/frame @512^2). The Pallas
-    # path stays available (and tested) for kernels where it wins.
-    use_pallas: bool = False
     dtype: str = "float32"
-    # 'int8': conv MXU ops run int8xint8->int32 with f32 dequant epilogues
+    # 'int8': convs run int8xint8->int32 with f32 dequant epilogues
     # (ops/quant.py); everything else follows `dtype`. Inference-only —
     # params must be quantized via quantize_params_int8.
     quant: str = "none"
     # decoder skip-concat convs as two channel-sliced convs summed (same
     # math, no concat buffer / layout copy — the r1 split-gate-conv lesson)
     split_skip_convs: bool = False
-    # whole-level fused ConvLSTM Pallas kernel for inference (levels whose
-    # shapes satisfy ops/pallas/convlstm_cell.supported; falls back to XLA
-    # elsewhere). Inference-only: it defines no VJP.
-    fused_cell: bool = False
     # LSTM carry dtype: 'auto' follows `dtype`; 'float32' keeps (h, c) in f32
     # under bf16 compute — the cell state accumulates across an unbounded
     # stream, so drift matters for very long sequences (gate math always
@@ -299,9 +289,7 @@ class ULSTMnet2D:
                          state[lvl][j][0])
                 carry, x = ConvLSTMCell.apply(
                     cell, state[lvl][j], x,
-                    recurrent_activation=cfg.recurrent_activation,
-                    use_pallas=cfg.use_pallas,
-                    fused_cell=cfg.fused_cell)
+                    recurrent_activation=cfg.recurrent_activation)
                 lvl_state.append(carry)
                 x = x.astype(dt)  # carry may be f32 (state_dtype='float32')
                 # no-op outside jax.checkpoint; under the 'save_outputs'
@@ -338,8 +326,7 @@ class ULSTMnet2D:
         (SURVEY.md §3.3: the only cross-frame dataflow is the LSTM state).
         ``remat`` rematerializes the body in the backward pass to trade
         FLOPs for HBM during BPTT:
-          - False: save every intermediate (flagship B5/T7/256² exceeds
-            v5e HBM at compile time — BASELINE.md)
+          - False: save every intermediate
           - True / 'full': save nothing, recompute the whole body
           - 'save_outputs': save the per-level ConvLSTM and conv-stack
             outputs (the checkpoint_name sites in ``step``) and recompute

@@ -11,8 +11,8 @@ a `lax.while_loop` runs to a fixed point with an iteration bound. The
 converged label of a component is its minimum seed = raster-order-first
 pixel, so compacted labels come out in the same raster order cv2 assigns.
 
-Each propagation round is a handful of cheap VPU shift/min ops on a
-[H, W] i32 grid — bandwidth-trivial at 512²; the fixed point is reached in
+Each propagation round is a handful of cheap elementwise shift/min ops on
+a [H, W] i32 grid — bandwidth-trivial at 512²; the fixed point is reached in
 O(component diameter) rounds (we sweep 4 rounds per convergence check to
 amortize the reduction).
 """
@@ -163,14 +163,14 @@ def relabel_compact_mm(labels: jax.Array, min_size: int = 0,
                        max_size: int = 0) -> Tuple[jax.Array, jax.Array]:
     """Scatter/gather-free :func:`relabel_compact` (same contract).
 
-    TPU scatter-add and random gather over the h*w+1 seed table cost ~3.3 +
-    3.4 ms @512² (BASELINE.md round-2 decomposition) — random access is the
-    one thing the MXU/VPU can't stream. This variant never random-accesses:
+    Replaces the scatter-add histogram and the random gather over the h*w+1
+    seed table with dense one-hot matrix products, for devices where random
+    access is slow and matrix units are fast:
 
     - histogram: seed value s = hi*w + lo decomposes into (hi, lo); counts
       over the 2-D bin grid are ``one_hot(hi)^T @ one_hot(lo)`` summed over
-      pixel chunks — 0/1 bf16 matmuls with f32 accumulation are EXACT and
-      run on the MXU (~137 GFLOP @512², ~1 ms vs 3.3 ms scatter);
+      pixel chunks — 0/1 bf16 matmuls with f32 accumulation are EXACT
+      (~137 GFLOP @512²);
     - compaction ids: raster cumsum over the bin grid = per-row cumsum +
       row-offset prefix (cheap 2-D pass, not a 262k 1-D scan);
     - remap: ``new_ids[seed_p]`` gathers become two more one-hot matmuls
@@ -201,8 +201,7 @@ def relabel_compact_mm(labels: jax.Array, min_size: int = 0,
     return out, n
 
 
-_MM_CH = 16  # pixel rows per scan step (A/B'd on v5e: 16 beats 8 by ~3%,
-             # 32 regresses — BASELINE.md)
+_MM_CH = 16  # pixel rows per scan step
 
 
 def _mm_split(values: jax.Array):
@@ -235,7 +234,7 @@ def mm_histogram(values: jax.Array) -> jax.Array:
     """Histogram of [h,w] int32 values in [0, h*w] -> counts [(hp+1), w]
     where hp is h padded to the chunk multiple (bin of value s =
     (s // w, s % w); row padding inflates only bin (0, 0)), computed as
-    chunked ``one_hot(hi)^T @ one_hot(lo)`` MXU matmuls — no scatter. 0/1
+    chunked ``one_hot(hi)^T @ one_hot(lo)`` matmuls — no scatter. 0/1
     bf16 operands with f32 accumulation are exact for counts < 2^24."""
     # f32 accumulation is exact only below 2^24 per bin; a single component
     # larger than ~16.7M pixels (frames beyond ~4096x4096) would silently
@@ -259,7 +258,7 @@ def mm_histogram(values: jax.Array) -> jax.Array:
 
 def mm_histogram_u16(values: jax.Array) -> jax.Array:
     """Histogram of values in [0, 65535] -> counts [256, 256] (bin of v =
-    (v >> 8, v & 255), raster order == value order) via chunked one-hot MXU
+    (v >> 8, v & 255), raster order == value order) via chunked one-hot
     matmuls — the scatter-free histogram trick applied to the uint16 value
     domain (exact: 0/1 bf16 operands, f32 accumulation, counts < 2^24).
     Used by the exact integer percentile normalization
@@ -289,7 +288,7 @@ def mm_histogram_u16(values: jax.Array) -> jax.Array:
 
 def mm_lookup(values: jax.Array, table: jax.Array) -> jax.Array:
     """Per-pixel ``table[values // w, values % w]`` without random gathers:
-    one-hot MXU matmuls against the table split into high/low bytes (table
+    one-hot matmuls against the table split into high/low bytes (table
     entries must be int in [0, 65535] — exact per byte in bf16). ``table``
     must come from :func:`mm_histogram`-shaped bins ([(hp+1), w])."""
     h, w = values.shape

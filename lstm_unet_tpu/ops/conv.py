@@ -1,9 +1,9 @@
-"""2D conv / pool / upsample primitives, NHWC, TPU-native.
+"""2D conv / pool / upsample primitives, NHWC.
 
 Reference parity: the reference delegates these to Keras/cuDNN
 (SURVEY.md §2 — "all heavy lifting is delegated to stock TF/Keras kernels");
-the TPU-native analog is XLA's `conv_general_dilated` (lowers onto the MXU)
-with elementwise activations left for XLA to fuse. SAME padding geometry
+here XLA's `conv_general_dilated` (cuDNN on the GPU) with elementwise
+activations left for XLA to fuse. SAME padding geometry
 matches TF (SURVEY.md §7 hard-part #4).
 """
 
@@ -18,25 +18,14 @@ import jax.numpy as jnp
 
 _DIMNUMS = ("NHWC", "HWIO", "NHWC")
 
-# float conv lowering method, mirroring ops/quant.py's int8 A/B: 'conv' =
-# conv_general_dilated (XLA conv layout assignment inserts re-tiling copies
-# — measured 256 ms/step = 18% of bf16 BPTT and 8 ms/frame of the int8
-# stream, BASELINE.md r3); 'dots' = shifted-tap accumulation, a kh×kw
+# float conv lowering method, mirroring ops/quant.py's int8 knob: 'conv' =
+# conv_general_dilated; 'dots' = shifted-tap accumulation, a kh×kw
 # SAME/stride-1 conv as the sum of kh·kw channel matmuls over statically
-# shifted views — plain dot_general, NO conv-specific layouts, and its
-# BACKWARD is also plain matmuls (no conv-transpose layout copies in BPTT).
-# f32 tap accumulation, one final round to the input dtype — same
-# accumulation discipline as the MXU conv path, but the kh·kw-way add tree
-# is explicit, so results are close-not-bit-identical to 'conv' in float
-# (unlike the int8 twin, which is exact). Flagship channels are ≥128, so
-# every tap matmul fully feeds the MXU K dimension.
-# 'auto' resolves to 'conv' on every backend: the chip A/B measured the
-# int8 dots twin at 8.54 vs conv 33.345 fps/chip @512² (BASELINE.md r3
-# session 4) — the kh·kw shifted operand copies cost far more than the
-# conv kernel's layout-assignment copies they were meant to absorb.
-# 'dots' stays selectable explicitly for the still-pending training BPTT
-# A/B (a different regime: the backward of 'dots' is plain matmuls, no
-# conv-transpose layout copies over the 7-step scan).
+# shifted views — plain dot_general, no conv-specific layouts, and its
+# backward is also plain matmuls. f32 tap accumulation, one final round to
+# the input dtype, so results are close-not-bit-identical to 'conv' in
+# float (unlike the int8 twin, which is exact). 'auto' resolves to 'conv'
+# (ROADMAP D2 decides the knob on the card).
 CONV_METHOD = os.environ.get("LSTM_UNET_CONV", "conv")
 CONV_DOTS_MIN_HW = 128 * 128
 
@@ -103,8 +92,8 @@ def conv2d(x: jax.Array, kernel: jax.Array, bias: Optional[jax.Array] = None,
            stride: Tuple[int, int] = (1, 1), padding: str = "SAME") -> jax.Array:
     """NHWC conv in the input dtype.
 
-    The TPU MXU accumulates bf16 products in f32 internally, so bf16 in/out
-    keeps f32 accumulation without forcing an f32 output. (Forcing
+    bf16 products accumulate in f32 inside the conv, so bf16 in/out keeps
+    f32 accumulation without forcing an f32 output. (Forcing
     ``preferred_element_type=f32`` also breaks the bf16 backward pass: the
     conv transpose then pairs an f32 cotangent with bf16 operands.)
     """
@@ -148,7 +137,7 @@ def upsample_2x(x: jax.Array, method: str = "nearest") -> jax.Array:
     """2x spatial upsample (reference: Keras UpSampling2D, nearest [M])."""
     b, h, w, c = x.shape
     if method == "nearest":
-        # einops-style repeat compiles to a cheap broadcast+reshape on TPU
+        # einops-style repeat compiles to a cheap broadcast+reshape
         return jnp.broadcast_to(x[:, :, None, :, None, :], (b, h, 2, w, 2, c)).reshape(
             b, 2 * h, 2 * w, c)
     if method == "bilinear":

@@ -1,15 +1,11 @@
-"""ConvLSTM2D cell — TPU-native.
+"""ConvLSTM2D cell.
 
 Reference parity: Keras ``ConvLSTM2D`` as used per encoder level in
 ``Networks.py::DownBlock2D`` (SURVEY.md §2, §3.3). Semantics reproduced:
 
 - gate pre-activations = conv(x, Wx) + conv(h, Wh) + b over 4F channels —
-  the same separate input/recurrent kernels Keras uses. (Separate convs are
-  also the right MXU shape: a fused conv over concat([x, h]) has
-  Cin = in_channels + F, which at the first level is 1+F — one lane past a
-  tile boundary, so the MXU pads the reduction dim to the next multiple of
-  128 and nearly doubles the dominant conv's cost; the split h-conv keeps
-  Cin = F, perfectly tiled, and skips materializing the concat buffer.)
+  the same separate input/recurrent kernels Keras uses (two convs also skip
+  materializing a concat([x, h]) buffer),
 - gate order (i, f, candidate, o), unit forget-gate bias init,
 - recurrent_activation 'sigmoid' (or 'hard_sigmoid' for Keras-2.0 parity),
 - explicit (h, c) carry as a pytree — the reference manages Keras layer
@@ -17,8 +13,8 @@ Reference parity: Keras ``ConvLSTM2D`` as used per encoder level in
   "Full model"); here state is a value, which makes truncated BPTT,
   per-lane reset, donation, and sharding trivial.
 
-The post-conv gate math runs in the fused Pallas kernel
-(ops/pallas/lstm_gates.py); ``use_pallas=False`` selects the XLA twin.
+The post-conv gate math (:func:`lstm_gate_update_xla`) is plain
+``jax.numpy`` that XLA fuses into one elementwise pass over the gate tensor.
 
 Init deviation (documented): Keras uses orthogonal init for the recurrent
 kernel; we use glorot-uniform for both kernels. Initializer choice is a
@@ -34,9 +30,46 @@ import jax
 import jax.numpy as jnp
 
 from .conv import conv2d
-from .pallas.lstm_gates import fused_lstm_gate_update, lstm_gate_update_xla
 
 Carry = Tuple[jax.Array, jax.Array]  # (h, c), each [B,H,W,F]
+
+
+def _recurrent_act(x, kind: str):
+    if kind == "sigmoid":
+        return jax.nn.sigmoid(x)
+    if kind == "hard_sigmoid":
+        return jnp.clip(0.2 * x + 0.5, 0.0, 1.0)
+    raise ValueError(f"unknown recurrent activation {kind!r}")
+
+
+def lstm_gate_update_xla(gates: jax.Array, c: jax.Array,
+                         recurrent_activation: str = "sigmoid"):
+    """(c_new, h_new) from pre-activation gates [..., 4F] and c [..., F].
+
+    Reference parity: the gate math of Keras ``ConvLSTM2D`` (SURVEY.md
+    §3.3), gate order (i, f, g/candidate, o)::
+
+        i, f, o = act_r(gates[i]), act_r(gates[f]), act_r(gates[o])
+        c_new = f * c + i * tanh(gates[g]);  h_new = o * tanh(c_new)
+
+    ``act_r`` is sigmoid, or ``hard_sigmoid`` (clip(0.2x + 0.5, 0, 1)) for
+    Keras-2.0-era parity. Gate math runs in f32, but the upcast happens
+    per-slice AFTER the gate tensor is read: casting the whole tensor first
+    fuses the convert into the producing conv and materializes the 4F gates
+    in f32 — doubling the dominant buffer's traffic under bf16 compute.
+    """
+    feat = c.shape[-1]
+
+    def g32(k):
+        return gates[..., k * feat: (k + 1) * feat].astype(jnp.float32)
+
+    i = _recurrent_act(g32(0), recurrent_activation)
+    f = _recurrent_act(g32(1), recurrent_activation)
+    cand = jnp.tanh(g32(2))
+    o = _recurrent_act(g32(3), recurrent_activation)
+    c_new = f * c.astype(jnp.float32) + i * cand
+    h_new = o * jnp.tanh(c_new)
+    return c_new.astype(c.dtype), h_new.astype(c.dtype)
 
 
 class ConvLSTMCell:
@@ -66,50 +99,16 @@ class ConvLSTMCell:
 
     @staticmethod
     def apply(params: Dict[str, jax.Array], carry: Carry, x: jax.Array, *,
-              recurrent_activation: str = "sigmoid",
-              use_pallas: bool = True,
-              fused_cell: bool = False) -> Tuple[Carry, jax.Array]:
-        """One timestep: ((h,c), x[B,H,W,Cin]) -> ((h',c'), h').
-
-        ``fused_cell=True`` routes through the whole-level Pallas kernel
-        (ops/pallas/convlstm_cell.py) when its shape/VMEM constraints hold:
-        the recurrent conv + gate math run VMEM-resident, so the 4F gate
-        tensor and its blocked-layout copies never hit HBM.
-        """
+              recurrent_activation: str = "sigmoid"
+              ) -> Tuple[Carry, jax.Array]:
+        """One timestep: ((h,c), x[B,H,W,Cin]) -> ((h',c'), h')."""
         h, c = carry
-        if fused_cell:
-            from .pallas.convlstm_cell import fused_convlstm_level, supported
-
-            quantized = "kernel_x_q" in params
-            kh_, kw_, feat = (params["kernel_h_q"].shape[:2] + (c.shape[-1],)
-                              if quantized else
-                              params["kernel_h"].shape[:2] + (c.shape[-1],))
-            if supported(x.shape[1], x.shape[2], feat, kh_, kw_, x.shape[0]):
-                if quantized:
-                    from .quant import conv2d_q
-
-                    gx_q = {"kernel_q": params["kernel_x_q"],
-                            "w_scale": params["wx_scale"],
-                            "bias": params["bias"]}
-                    if "x_scale" in params:
-                        gx_q["x_scale"] = params["x_scale"]
-                    gx = conv2d_q(x, gx_q, out_dtype=x.dtype)
-                    wh = (params["kernel_h_q"].astype(x.dtype)
-                          * params["wh_scale"].astype(x.dtype))
-                else:
-                    gx = conv2d(x, params["kernel_x"], params["bias"])
-                    wh = params["kernel_h"].astype(x.dtype)
-                h_new, c_new = fused_convlstm_level(
-                    gx[0], h[0], c[0], wh,
-                    recurrent_activation=recurrent_activation)
-                return (h_new[None], c_new[None]), h_new[None]
         if "kernel_x_q" in params:  # int8-quantized cell (ops/quant.py)
             from .quant import conv2d_q
 
-            # gate pre-activations in the compute dtype (bf16): f32 gate
-            # outputs at 4F channels cost ~1 GB/step of blocked-layout
-            # copies on v5e (int8 HLO analysis, BASELINE.md); the bf16
-            # baseline computes gates in bf16 too, so this loses nothing
+            # gate pre-activations in the compute dtype (bf16), as on the
+            # float path: f32 gates at 4F channels would double the
+            # dominant buffer's bytes
             qx = {"kernel_q": params["kernel_x_q"],
                   "w_scale": params["wx_scale"], "bias": params["bias"]}
             qh = {"kernel_q": params["kernel_h_q"],
@@ -123,6 +122,5 @@ class ConvLSTMCell:
         else:
             gates = (conv2d(x, params["kernel_x"], params["bias"])
                      + conv2d(h.astype(x.dtype), params["kernel_h"]))
-        update = fused_lstm_gate_update if use_pallas else lstm_gate_update_xla
-        c_new, h_new = update(gates, c, recurrent_activation)
+        c_new, h_new = lstm_gate_update_xla(gates, c, recurrent_activation)
         return (h_new, c_new), h_new

@@ -18,7 +18,6 @@ import jax.numpy as jnp
 
 from .ccl import (connected_components, connected_components_scan,
                   relabel_compact, relabel_compact_mm)
-from .pallas.ccl import connected_components_pallas
 
 
 _INT_MAX = jnp.iinfo(jnp.int32).max
@@ -96,7 +95,7 @@ def _erode(mask: jax.Array, connectivity: int = 8) -> jax.Array:
 def chebyshev_distance(mask: jax.Array, max_iters: int = 0) -> jax.Array:
     """Chebyshev (8-connected) distance to background for each mask pixel
     (0 outside the mask, 1 on the component border) via iterated erosion —
-    an early-exit while_loop of cheap VPU shift/and ops, O(max cell radius)
+    an early-exit while_loop of cheap elementwise shift/and ops, O(max cell radius)
     rounds. ``max_iters`` caps the rounds (0 = until the mask erodes away)."""
     return _erosion_distance(mask, max_iters, octagon=False)
 
@@ -140,8 +139,8 @@ def _erosion_distance(mask: jax.Array, max_iters: int, octagon: bool
 def split_touching_instances(lbl: jax.Array, interior: jax.Array,
                              window: int = 16, min_dist: int = 4,
                              slack: int = 1, rel: float = 0.65,
-                             rel_window: int = 48, min_size: int = 0,
-                             use_pallas_ccl: bool = False) -> jax.Array:
+                             rel_window: int = 48, min_size: int = 0
+                             ) -> jax.Array:
     """Partition merged components of touching cells along their distance
     ridge (SURVEY.md §3.2 watershed-style postprocess [M], at its real
     intent: separating touching cells; VERDICT r2 task #1).
@@ -204,18 +203,15 @@ def split_touching_instances(lbl: jax.Array, interior: jax.Array,
         counts = jnp.zeros((n,), jnp.int32).at[lbl.reshape(-1)].add(1)
         comp_size = counts[lbl.reshape(-1)].reshape(h, w)
         markers &= comp_size >= min_size
-    if use_pallas_ccl:
-        seeds = connected_components_pallas(markers)
-    else:
-        seeds = connected_components(markers, connectivity=8)
+    seeds = connected_components(markers, connectivity=8)
     grown = grow_into_band(seeds, interior, max_rounds=0)
     return jnp.where(grown > 0, grown, jnp.where(lbl > 0, lbl, 0))
 
 
 def split_touching_instances_prob(lbl: jax.Array, interior: jax.Array,
                                   p_cell: jax.Array, hi_thresh: float = 0.8,
-                                  erode_iters: int = 1, min_size: int = 0,
-                                  use_pallas_ccl: bool = False) -> jax.Array:
+                                  erode_iters: int = 1, min_size: int = 0
+                                  ) -> jax.Array:
     """Partition merged components along the MODEL'S OWN internal evidence
     (hysteresis two-threshold split) instead of mask geometry.
 
@@ -253,12 +249,32 @@ def split_touching_instances_prob(lbl: jax.Array, interior: jax.Array,
         counts = jnp.zeros((n,), jnp.int32).at[lbl.reshape(-1)].add(1)
         comp_size = counts[lbl.reshape(-1)].reshape(h, w)
         markers &= comp_size >= min_size
-    if use_pallas_ccl:
-        seeds = connected_components_pallas(markers)
-    else:
-        seeds = connected_components(markers, connectivity=8)
+    seeds = connected_components(markers, connectivity=8)
     grown = grow_into_band(seeds, interior, max_rounds=0)
     return jnp.where(grown > 0, grown, jnp.where(lbl > 0, lbl, 0))
+
+
+# relabel_method='auto' per platform. 'matmul' replaces the scatter-add
+# histogram and the random gather over the h*w+1 seed table with one-hot
+# matmuls (bit-identical below 65536 instances, ALL-int32-max above — the
+# byte-split cannot represent larger ids and the output contract is uint16
+# anyway); it pays only where random access is slow and matrix units are
+# fast. On the H100 the scatter path took 0.180 ms and the matmul path
+# 4.357 ms for a 512² frame of 40 cells (PERF.md, bring-up), and on the CPU
+# the dense contraction is far slower too, so both take 'scatter'.
+AUTO_RELABEL = {"cpu": "scatter", "gpu": "scatter"}
+
+
+def resolve_relabel_method(method: str, platform: str | None = None) -> str:
+    """'auto' -> the measured choice for ``platform`` (default: JAX's
+    default backend); other methods pass through."""
+    if method != "auto":
+        return method
+    platform = platform or jax.default_backend()
+    if platform not in AUTO_RELABEL:
+        raise ValueError(f"relabel_method='auto' has no measured choice for "
+                         f"platform {platform!r}; pass 'scatter' or 'matmul'")
+    return AUTO_RELABEL[platform]
 
 
 @functools.partial(
@@ -266,7 +282,7 @@ def split_touching_instances_prob(lbl: jax.Array, interior: jax.Array,
     static_argnames=("cell_thresh", "edge_thresh", "min_cell_size",
                      "max_cell_size", "size_filter", "fov",
                      "boundary_growth", "grow_iters",
-                     "use_pallas_ccl", "ccl_method", "relabel_method",
+                     "ccl_method", "relabel_method",
                      "instance_split", "split_method",
                      "split_window", "split_min_dist", "split_slack",
                      "split_rel", "split_rel_window", "split_min_size",
@@ -282,7 +298,6 @@ def postprocess_frame(
     fov: int = 0,
     boundary_growth: str = "marker",
     grow_iters: int = 0,
-    use_pallas_ccl: bool = False,
     ccl_method: str = "sweep",
     relabel_method: str = "auto",
     instance_split: bool = False,
@@ -327,13 +342,7 @@ def postprocess_frame(
     probs = probs.astype(jnp.float32)
     h, w = probs.shape[0], probs.shape[1]
     interior = probs[..., 1] > cell_thresh
-    # The VMEM-resident Pallas CCL wins standalone (2.41 vs 3.29 ms @512^2,
-    # bit-identical) but LOSES ~15% fused into the full streaming program
-    # (pallas_call layout boundary serializes against model compute —
-    # BASELINE.md), so the XLA twin is the default here.
-    if use_pallas_ccl:
-        raw = connected_components_pallas(interior)
-    elif ccl_method == "scan":
+    if ccl_method == "scan":
         # run-propagation sweeps (segmented min-scans): bit-identical,
         # fewer iterations on large blobs — A/B option (CLAUDE.md: fused
         # end-to-end A/B before any default flip)
@@ -344,29 +353,16 @@ def postprocess_frame(
         if split_method == "prob":
             raw = split_touching_instances_prob(
                 raw, interior, probs[..., 1], hi_thresh=split_hi_thresh,
-                erode_iters=split_erode, min_size=split_min_size,
-                use_pallas_ccl=use_pallas_ccl)
+                erode_iters=split_erode, min_size=split_min_size)
         elif split_method == "dist":
             raw = split_touching_instances(raw, interior, window=split_window,
                                            min_dist=split_min_dist,
                                            slack=split_slack, rel=split_rel,
                                            rel_window=split_rel_window,
-                                           min_size=split_min_size,
-                                           use_pallas_ccl=use_pallas_ccl)
+                                           min_size=split_min_size)
         else:
             raise ValueError(f"unknown split_method {split_method!r}")
-    # relabel over the h*w+1 seed table: 'matmul' replaces the scatter-add
-    # histogram + random gather (the two ops the TPU can't stream; measured
-    # 3.3 + 3.4 ms @512²) with one-hot MXU matmuls — bit-identical output
-    # below 65536 instances, ALL-int32-max above (loud; the mm byte-split
-    # cannot represent larger ids and the output contract is uint16 anyway).
-    # The mm ops pad odd heights internally, so 'auto' is 'matmul' wherever
-    # an MXU exists; on the CPU/XLA fallback the dense one-hot contraction
-    # is much slower than scatter (outputs are bit-identical either way), so
-    # 'auto' dispatches on the backend (ADVICE r2).
-    if relabel_method == "auto":
-        relabel_method = ("scatter" if jax.default_backend() == "cpu"
-                          else "matmul")
+    relabel_method = resolve_relabel_method(relabel_method)
     if size_filter not in ("pre", "post"):
         raise ValueError(f"unknown size_filter {size_filter!r}")
     # 'post': compact only here; measure sizes on the GROWN labels below
@@ -418,8 +414,7 @@ def postprocess_frame(
             # survives iff it touches the inside region, so the compact ids
             # derive directly from the touches histogram (keep + raster
             # cumsum) and a single mm_lookup both filters (dropped -> 0)
-            # and renumbers (r2 session 1 measured the scatter FOV pass at
-            # ~8.5 ms/frame @512² with fov=25)
+            # and renumbers
             from .ccl import compact_ids_from_keep, mm_histogram, mm_lookup
 
             touches = mm_histogram(jnp.where(inside, lbl, 0))
@@ -439,7 +434,7 @@ def postprocess_frame(
             lbl, _ = relabel_compact(lbl, num_bins=n)
         # when fov == 0 the labels are already compact 1..N from the
         # min-size pass (growth adds no ids), so the second relabel pass is
-        # skipped entirely — measured ~2 ms/frame @512^2 on v5e (BASELINE.md)
+        # skipped entirely
     # >65535 surviving instances: mm byte-split ids (and the scatter FOV
     # bin clamp) are invalid past the uint16 output contract — poison the
     # whole map so the engine's labels.max() guard raises instead of

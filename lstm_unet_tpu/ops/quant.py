@@ -1,20 +1,20 @@
-"""int8 quantized inference (no reference analog — TPU upgrade).
+"""int8 quantized inference (no reference analog).
 
-The v5e MXU's int8 peak is 2x its bf16 peak, and the streaming step is
-compute/bandwidth co-limited (BASELINE.md roofline: 56% MXU / 54% HBM
-simultaneously), so int8 convs attack both terms at once: half the MXU time
-and half the activation bytes into each conv.
+Tensor cores run int8 at twice their bf16 rate, and int8 activations halve
+the bytes into each conv, so int8 convs can cut both the compute and the
+bandwidth term of the streaming step. Whether they do on a given device is
+a measurement (PERF.md), not an assumption.
 
 Scheme (symmetric, zero-point 0 — SAME zero-padding stays exact):
 - weights: per-output-channel scales, ``q = round(k / s_w)`` in [-127, 127]
 - activations: dynamic per-tensor scale ``s_x = max|x| / 127`` computed on
   the fly (a cheap fused reduction; no calibration pass or stored stats)
-- conv: int8 x int8 -> int32 accumulation on the MXU
+- conv: int8 x int8 -> int32 accumulation
   (``preferred_element_type=int32``), dequantized in f32 in the epilogue:
   ``y = acc * (s_x * s_w) + bias``
 
 Gate math / LayerNorm / softmax stay in f32 exactly as the bf16 path; only
-the conv MXU ops and their activation operands change width. Quantized
+the convs and their activation operands change width. Quantized
 param dicts are self-describing: the presence of ``kernel_q`` (convs) or
 ``kernel_x_q`` (ConvLSTM cells) selects the int8 path in the model.
 """
@@ -52,27 +52,18 @@ def quantize_act(x: jax.Array, scale: Optional[jax.Array] = None
     return q, scale
 
 
-# int8 conv accumulator element type. int32 is the exact MXU-native choice;
-# f32 lets XLA fuse the dequant into the conv epilogue instead of
-# materializing an int32 intermediate (A/B'd on v5e — see BASELINE.md).
+# int8 conv accumulator element type: int32 is exact.
 ACC_DTYPE = jnp.int32
 
-# int8 conv lowering method. 'conv' = conv_general_dilated (XLA picks
-# blocked conv layouts and inserts re-tiling copies around them — measured
-# ~8 ms/frame at 512², BASELINE.md r2 int8 findings). 'dots' = shifted-tap
-# accumulation: a kh×kw conv is the exact integer sum of kh·kw channel
-# matmuls over statically shifted views, lowering to plain dot_general with
-# NO conv-specific layout assignment — the A/B probe at the copies.
-# Bit-identical by construction (integer arithmetic, same accumulator).
-# 'dots' applies only where h·w ≥ INT8_DOTS_MIN_HW (the copies live at the
-# large-spatial levels 0–1; small levels keep the fused conv).
+# int8 conv lowering method. 'conv' = conv_general_dilated. 'dots' =
+# shifted-tap accumulation: a kh×kw conv is the exact integer sum of kh·kw
+# channel matmuls over statically shifted views, lowering to plain
+# dot_general with no conv-specific layout assignment. Bit-identical by
+# construction (integer arithmetic, same accumulator). 'dots' applies only
+# where h·w ≥ INT8_DOTS_MIN_HW; small levels keep the conv. 'auto' resolves
+# to 'conv' (ROADMAP D2 decides the knob on the card).
 import os as _os
 
-# 'auto' resolves to 'conv' for int8: the chip A/B measured dots at 8.54
-# vs conv 33.345 fps/chip @512² (BASELINE.md r3 session 4) — the shifted-
-# tap build's 9 operand copies per conv cost far more than the conv
-# kernel's layout-assignment copies they were meant to kill. 'dots' stays
-# available explicitly (bit-identical, just slow on TPU).
 INT8_CONV_METHOD = _os.environ.get("LSTM_UNET_INT8_CONV", "conv")
 INT8_DOTS_MIN_HW = 128 * 128
 
@@ -83,8 +74,7 @@ def _conv_int8(qx: jax.Array, kq: jax.Array) -> jax.Array:
 
     _, h, w, _ = qx.shape
     kh, kw, _, _ = kq.shape
-    # 'auto' → 'conv' here (measured: dots loses ~4× on the int8 path,
-    # see INT8_CONV_METHOD note) — only an explicit 'dots' selects dots.
+    # 'auto' → 'conv' here — only an explicit 'dots' selects dots.
     if (INT8_CONV_METHOD != "dots"
             or h * w < INT8_DOTS_MIN_HW
             or kh % 2 == 0 or kw % 2 == 0):
@@ -231,10 +221,7 @@ def quantize_params_int8(params: Dict,
     ``parse_keep_float``)
     whose conv/cell dicts stay FLOAT (cast to ``float_dtype``) — the model
     dispatches per site on the presence of ``kernel_q``, so int8 and float
-    convs mix freely in one tree. Mixed-precision serving A/B: the r2 trace
-    charged the residual ~8 ms/frame of layout copies to the blocked int8
-    conv layouts at the large-spatial levels; keeping those levels bf16
-    trades copy time against MXU/HBM headroom (BASELINE.md).
+    convs mix freely in one tree (mixed-precision serving).
     """
     keep_float = parse_keep_float(keep_float)
 

@@ -6,4 +6,3 @@ from .mesh import (  # noqa: F401
     shard_batch,
     shard_state,
 )
-from .distributed import initialize  # noqa: F401

@@ -1,10 +1,8 @@
 """Cross-backend mask agreement: score one mask dir against another.
 
-VERDICT r2 task #5 asks for an on-hardware rehearsal at a non-square real
-CTC geometry (690x628, Fluo-N2DH-SIM+ shape) with the chip masks checked
-against the CPU path. bf16 TPU matmuls vs f32 CPU are NOT bit-identical
-(BASELINE.md: backends agree to <=0.0006 SEG/seq at 512 squared), so the
-honest check is an agreement SCORE: treat dir A's masks as ground truth
+Checks device masks against the CPU path, e.g. at a non-square real CTC
+geometry (690x628, Fluo-N2DH-SIM+ shape). bf16 accelerator matmuls vs f32
+CPU are NOT bit-identical, so the honest check is an agreement SCORE: treat dir A's masks as ground truth
 and SEG-score dir B's against them (symmetric mismatches shrink the
 per-object Jaccard either way). 1.0 = label-map-identical instances.
 

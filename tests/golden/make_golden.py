@@ -19,9 +19,6 @@ import sys
 import tempfile
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "..", ".."))

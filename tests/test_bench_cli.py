@@ -1,14 +1,15 @@
-"""bench.py emission contract: the driver parses ONE JSON line per run.
+"""bench.py emission contract: one JSON line per run, naming its device.
 
-Covers the round-4 additions: --mfu (HLO flops/step + MFU vs v5e peak) and
-the dual train denominators (train_value @ throughput batch,
-train_parity_value @ B5 reference parity) — see ADVICE r3 low #5.
+MFU divides by the device's published peak from ``bench.PEAKS``; a device
+missing from the table (the CPU here) is an error, never a default.
 """
 
 import io
 import json
 import os
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -26,20 +27,14 @@ def _capture_stdout(fn):
 
 
 def test_bench_train_mfu_emits_flops_and_mfu():
+    """On the CPU the MFU path computes the step's FLOPs, then refuses to
+    divide by a peak it does not know."""
     import bench
 
-    out = _capture_stdout(lambda: bench.bench_train(
-        32, "float32", tiny=True, steps=1, emit=True, remat="none",
-        B=1, T=1, mfu=True))
-    line = [l for l in out.splitlines() if l.startswith("{")][-1]
-    d = json.loads(line)
-    assert d["unit"] == "frames/sec/chip"
-    assert d["value"] > 0
-    # cost_analysis must have produced a positive flop count on CPU; the
-    # mfu key rides with it (rounds to ~0 on CPU — only the chip number
-    # is meaningful, but the plumbing is backend-independent)
-    assert d.get("train_flops_per_step", 0) > 0, d
-    assert "train_mfu" in d, d
+    with pytest.raises(ValueError, match="unknown device kind 'cpu'"):
+        _capture_stdout(lambda: bench.bench_train(
+            32, "float32", tiny=True, steps=1, emit=True, remat="none",
+            B=1, T=1, mfu=True))
 
 
 def test_bench_train_no_mfu_keys_by_default():
@@ -49,5 +44,16 @@ def test_bench_train_no_mfu_keys_by_default():
         32, "float32", tiny=True, steps=1, emit=True, remat="none",
         B=1, T=1))
     d = json.loads([l for l in out.splitlines() if l.startswith("{")][-1])
+    assert d["unit"] == "frames/sec" and d["value"] > 0
+    assert d["device"] == {"platform": "cpu", "kind": "cpu", "count": 8}
     assert "train_flops_per_step" not in d
     assert "train_mfu" not in d
+
+
+def test_peak_table_knows_the_h100():
+    import bench
+
+    assert bench.peak_rate("NVIDIA H100 80GB HBM3", "bfloat16") == 989e12
+    assert bench.peak_rate("NVIDIA H100 80GB HBM3", "int8") == 1979e12
+    with pytest.raises(ValueError, match="unknown device kind"):
+        bench.peak_rate("Unlisted Card", "bfloat16")

@@ -74,11 +74,11 @@ def test_unset_flags_do_not_override_defaults():
 def test_infer_parser_int8_calibrate_fused_surface():
     args = infer_parser().parse_args([
         "--model_path", "m", "--sequence_path", "s", "--output_path", "o",
-        "--dtype", "int8", "--calibrate", "8", "--fused_cell",
+        "--dtype", "int8", "--calibrate", "8",
         "--state_dtype", "float32",
     ])
     assert args.dtype == "int8" and args.calibrate == 8
-    assert args.fused_cell is True and args.state_dtype == "float32"
+    assert args.state_dtype == "float32"
 
 
 def test_import_tf_parser_surface(tmp_path):
@@ -97,8 +97,8 @@ def test_import_tf_parser_surface(tmp_path):
 def test_train2d_cli_continue_run_reuses_dir(tmp_path):
     """The CLI must NOT pre-resolve a fresh timestamped dir when
     --continue_run has no explicit load path — the Trainer reuses the
-    latest matching experiment dir (caught resuming a real TPU run: the
-    r1 fix covered only the library path, not the CLI)."""
+    latest matching experiment dir (the library path alone once had this
+    fix, not the CLI)."""
     import json
     import os
 

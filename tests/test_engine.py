@@ -706,14 +706,17 @@ def test_compact_upload_is_bit_identical(synth_root, tmp_path):
 
 
 def test_rss_guard_exits_with_watchdog_code(synth_root, tmp_path, monkeypatch):
-    """The host-RSS relaunch guard saves and exits 17 (train_retry.sh then
-    relaunches with continue_run — same contract as the stall watchdog)."""
+    """The host-RSS relaunch guard, when armed, saves and exits 17 (a
+    supervisor then relaunches with continue_run — same contract as the
+    stall watchdog). It is off by default."""
     import lstm_unet_tpu.engine.train as train_mod
 
+    assert CTCParams().rss_relaunch_gb == 0.0
     monkeypatch.setattr(train_mod, "rss_gb", lambda: 999.0)
     monkeypatch.setattr(train_mod, "_RSS_CHECK_EVERY", 2)
     p = _params(synth_root, tmp_path, dry_run=False,
-                experiment_name="rssguard", save_checkpoint_iteration=10000)
+                experiment_name="rssguard", save_checkpoint_iteration=10000,
+                rss_relaunch_gb=90.0)
     t = Trainer(p, seed=0)
     with pytest.raises(SystemExit) as e:
         t.train(num_iterations=10)

@@ -129,19 +129,6 @@ def test_remat_policies_identical_loss_and_grads():
                                        atol=1e-6, rtol=1e-5)
 
 
-def test_pallas_and_xla_paths_agree():
-    nkp = tiny_net_kernel_params()
-    cfg_p = ModelConfig.make(nkp, use_pallas=True)
-    cfg_x = ModelConfig.make(nkp, use_pallas=False)
-    params = ULSTMnet2D.init(jax.random.PRNGKey(0), cfg_p)
-    B, T, H, W = 1, 2, 16, 16
-    x = jax.random.normal(jax.random.PRNGKey(6), (B, T, H, W, 1))
-    s = ULSTMnet2D.init_state(cfg_p, B, H, W)
-    _, a = ULSTMnet2D.apply(params, s, x, cfg_p)
-    _, b = ULSTMnet2D.apply(params, s, x, cfg_x)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
-
-
 def test_layernorm_option():
     cfg = ModelConfig.make(tiny_net_kernel_params(), norm="layernorm")
     params = ULSTMnet2D.init(jax.random.PRNGKey(0), cfg)

@@ -1,7 +1,7 @@
 """Unit tests for the op layer (SURVEY.md §4 test plan).
 
 - ConvLSTM cell vs a NumPy reference implementation of the gate math
-- Pallas fused gate update vs the XLA twin (forward + VJP)
+- gradient of the gate update vs its analytic backward formula
 - percentile normalization
 - instance→3-class conversion
 - CCL vs scipy.ndimage.label
@@ -21,11 +21,7 @@ from lstm_unet_tpu.io.preprocess import (
     percentile_normalize_np,
 )
 from lstm_unet_tpu.ops.ccl import connected_components, relabel_compact
-from lstm_unet_tpu.ops.convlstm import ConvLSTMCell
-from lstm_unet_tpu.ops.pallas.lstm_gates import (
-    fused_lstm_gate_update,
-    lstm_gate_update_xla,
-)
+from lstm_unet_tpu.ops.convlstm import ConvLSTMCell, lstm_gate_update_xla
 from lstm_unet_tpu.ops.postprocess import postprocess_frame
 
 
@@ -88,34 +84,47 @@ def test_convlstm_cell_matches_numpy(recurrent_activation):
         np.testing.assert_allclose(np.asarray(h1[b]), h_ref, atol=2e-4)
 
 
-def test_pallas_gate_update_matches_xla_fwd_and_bwd(monkeypatch):
-    # exercise the real Pallas kernel via the interpreter on CPU (on non-TPU
-    # backends the op otherwise dispatches to the XLA twin)
-    import lstm_unet_tpu.ops.pallas.lstm_gates as lg
+def _gate_update_vjp_reference(gates, c, dc_out, dh, recurrent_activation):
+    """Analytic backward of the ConvLSTM gate update, written out by hand:
+    d(gates), d(c) from the cotangents of (c_new, h_new)."""
+    feat = c.shape[-1]
+    zi, zf, zg, zo = (gates[..., k * feat:(k + 1) * feat] for k in range(4))
+    if recurrent_activation == "sigmoid":
+        act = lambda z: 1.0 / (1.0 + np.exp(-z))  # noqa: E731
+        dact = lambda z, a: a * (1.0 - a)  # noqa: E731
+    else:  # hard_sigmoid: slope 0.2 inside the linear band, 0 outside
+        act = lambda z: np.clip(0.2 * z + 0.5, 0.0, 1.0)  # noqa: E731
+        dact = lambda z, a: np.where(  # noqa: E731
+            (z > -2.5) & (z < 2.5), 0.2, 0.0)
+    i, f, o = act(zi), act(zf), act(zo)
+    cand = np.tanh(zg)
+    c_new = f * c + i * cand
+    tc = np.tanh(c_new)
+    dc_new = dc_out + dh * o * (1.0 - tc * tc)
+    d_zi = dc_new * cand * dact(zi, i)
+    d_zf = dc_new * c * dact(zf, f)
+    d_zo = dh * tc * dact(zo, o)
+    d_zg = dc_new * i * (1.0 - cand * cand)
+    return np.concatenate([d_zi, d_zf, d_zg, d_zo], axis=-1), dc_new * f
 
-    monkeypatch.setattr(lg, "FORCE_INTERPRET", True)
-    key = jax.random.PRNGKey(0)
-    rows, F = 100, 8  # deliberately not a multiple of the row block
-    gates = jax.random.normal(key, (rows, 4 * F), jnp.float32)
-    c = jax.random.normal(jax.random.PRNGKey(1), (rows, F), jnp.float32)
 
-    c_p, h_p = fused_lstm_gate_update(gates, c, "sigmoid")
-    c_x, h_x = lstm_gate_update_xla(gates, c, "sigmoid")
-    np.testing.assert_allclose(c_p, c_x, atol=1e-6)
-    np.testing.assert_allclose(h_p, h_x, atol=1e-6)
+@pytest.mark.parametrize("recurrent_activation", ["sigmoid", "hard_sigmoid"])
+def test_lstm_gate_update_grad_matches_analytic(recurrent_activation):
+    rows, F = 100, 8
+    gates = 2.0 * jax.random.normal(jax.random.PRNGKey(0), (rows, 4 * F))
+    c = jax.random.normal(jax.random.PRNGKey(1), (rows, F))
+    dc_out = jax.random.normal(jax.random.PRNGKey(2), (rows, F))
+    dh = jax.random.normal(jax.random.PRNGKey(3), (rows, F))
 
-    def loss_p(g, cc):
-        c2, h2 = fused_lstm_gate_update(g, cc, "sigmoid")
-        return jnp.sum(c2 * 0.3 + h2 * 0.7)
-
-    def loss_x(g, cc):
-        c2, h2 = lstm_gate_update_xla(g, cc, "sigmoid")
-        return jnp.sum(c2 * 0.3 + h2 * 0.7)
-
-    gp = jax.grad(loss_p, argnums=(0, 1))(gates, c)
-    gx = jax.grad(loss_x, argnums=(0, 1))(gates, c)
-    np.testing.assert_allclose(gp[0], gx[0], atol=1e-5)
-    np.testing.assert_allclose(gp[1], gx[1], atol=1e-5)
+    _, vjp = jax.vjp(
+        lambda g, cc: lstm_gate_update_xla(g, cc, recurrent_activation),
+        gates, c)
+    dgates, dc = vjp((dc_out, dh))
+    ref_g, ref_c = _gate_update_vjp_reference(
+        *(np.asarray(a, np.float64) for a in (gates, c, dc_out, dh)),
+        recurrent_activation)
+    np.testing.assert_allclose(np.asarray(dgates), ref_g, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(dc), ref_c, atol=1e-5)
 
 
 # ---------------------------------------------------------------- preprocess
@@ -233,52 +242,6 @@ def test_dilate_mode_leaves_band_center_unlabeled():
     assert np.all(lab[:, 6:9] == 0)
 
 
-def test_fused_convlstm_cell_matches_xla():
-    """Whole-level fused Pallas ConvLSTM (interpret mode on CPU) == XLA
-    path, float and int8-quantized params (ops/pallas/convlstm_cell.py)."""
-    from lstm_unet_tpu.ops.convlstm import ConvLSTMCell
-    from lstm_unet_tpu.ops.quant import quantize_weight
-
-    cell = ConvLSTMCell.init(jax.random.PRNGKey(0), 5, 1, 128)
-    state = ConvLSTMCell.init_state(1, 16, 128, 128)
-    state = (state[0] + 0.3, state[1] - 0.2)  # nonzero carry
-    x = jax.random.normal(jax.random.PRNGKey(1), (1, 16, 128, 1))
-    (h1, c1), _ = ConvLSTMCell.apply(cell, state, x, use_pallas=False)
-    (h2, c2), _ = ConvLSTMCell.apply(cell, state, x, use_pallas=False,
-                                     fused_cell=True)
-    np.testing.assert_allclose(np.asarray(h1), np.asarray(h2), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(c1), np.asarray(c2), atol=2e-5)
-
-    qx, sx = quantize_weight(cell["kernel_x"])
-    qh, sh = quantize_weight(cell["kernel_h"])
-    qcell = {"kernel_x_q": qx, "wx_scale": sx, "kernel_h_q": qh,
-             "wh_scale": sh, "bias": cell["bias"]}
-    (h3, c3), _ = ConvLSTMCell.apply(qcell, state, x, use_pallas=False)
-    (h4, c4), _ = ConvLSTMCell.apply(qcell, state, x, use_pallas=False,
-                                     fused_cell=True)
-    # both int8 paths quantize identically; the only delta is conv order
-    np.testing.assert_allclose(np.asarray(h3), np.asarray(h4), atol=5e-3)
-    np.testing.assert_allclose(np.asarray(c3), np.asarray(c4), atol=5e-3)
-    # unsupported shape (W not a multiple of 128) falls back to XLA
-    state5 = ConvLSTMCell.init_state(1, 16, 64, 128)
-    x5 = jax.random.normal(jax.random.PRNGKey(2), (1, 16, 64, 1))
-    (h5, c5), _ = ConvLSTMCell.apply(cell, state5, x5, use_pallas=False,
-                                     fused_cell=True)
-    assert h5.shape == (1, 16, 64, 128)
-
-
-def test_pallas_ccl_matches_xla(monkeypatch, rng):
-    """Pallas CCL (interpret mode on CPU) == XLA min-propagation twin."""
-    import lstm_unet_tpu.ops.pallas.lstm_gates as lg
-    from lstm_unet_tpu.ops.pallas.ccl import connected_components_pallas
-
-    monkeypatch.setattr(lg, "FORCE_INTERPRET", True)
-    mask = rng.random((32, 64)) > 0.7
-    a = np.asarray(connected_components_pallas(jnp.asarray(mask)))
-    b = np.asarray(connected_components(jnp.asarray(mask), connectivity=8))
-    np.testing.assert_array_equal(a, b)
-
-
 def test_postprocess_fov_rule():
     """Instances entirely inside the FOV border band are dropped; instances
     touching the interior survive (Inference2D FOV handling [M])."""
@@ -342,26 +305,33 @@ def test_ccl_scan_matches_sweep(rng):
         np.asarray(connected_components(jnp.asarray(spiral))))
 
 
-def test_ccl_spiral_worst_case(monkeypatch):
-    """Long-geodesic SINGLE component (a connected spiral walk): both CCL
-    twins must agree with scipy — guards the iteration bound (an h+w bound
+def test_ccl_spiral_worst_case():
+    """Long-geodesic SINGLE component (a connected spiral walk): the XLA CCL
+    must agree with scipy — guards the iteration bound (an h+w bound
     silently fragmented this case into dozens of instances)."""
-    import lstm_unet_tpu.ops.pallas.lstm_gates as lg
-    from lstm_unet_tpu.ops.pallas.ccl import connected_components_pallas
-
     mask = _spiral_mask(24)
     ref, n_ref = ndi.label(mask, structure=np.ones((3, 3)))
     assert n_ref == 1, "test precondition: spiral must be one component"
     ours, n_ours = relabel_compact(connected_components(jnp.asarray(mask)))
     assert int(n_ours) == 1
-    monkeypatch.setattr(lg, "FORCE_INTERPRET", True)
-    pl_labels = np.asarray(connected_components_pallas(jnp.asarray(mask)))
-    np.testing.assert_array_equal(
-        pl_labels, np.asarray(connected_components(jnp.asarray(mask))))
+    np.testing.assert_array_equal(np.asarray(ours), ref)
+
+
+def test_relabel_auto_resolves_per_platform():
+    """'auto' is the measured choice per platform (scatter on the H100 and
+    the CPU); explicit methods pass through; unmeasured platforms raise."""
+    from lstm_unet_tpu.ops.postprocess import resolve_relabel_method
+
+    assert resolve_relabel_method("auto", "gpu") == "scatter"
+    assert resolve_relabel_method("auto", "cpu") == "scatter"
+    assert resolve_relabel_method("auto") == "scatter"  # the CPU here
+    assert resolve_relabel_method("matmul", "gpu") == "matmul"
+    with pytest.raises(ValueError, match="no measured choice"):
+        resolve_relabel_method("auto", "rocm")
 
 
 def test_relabel_mm_matches_scatter():
-    """The matmul relabel (MXU one-hot histogram + byte-split remap) is
+    """The matmul relabel (one-hot histogram + byte-split remap) is
     bit-identical to the scatter/gather version across size filters."""
     import numpy as np
 
@@ -405,14 +375,17 @@ def test_mm_histogram_u16_exact(rng):
             counts, np.bincount(x.reshape(-1), minlength=65536))
 
 
-def test_integer_percentile_bounds_match_sort(rng):
+def test_integer_percentile_bounds_match_sort():
     """Histogram quantile == sort-based jnp.percentile on the integer
     domain: order statistics agree EXACTLY (test_mm_histogram_u16_exact +
     searchsorted); the final f32 lerp may differ by a few ulp across
     separately-compiled programs (XLA fusion/FMA choices vary with the
-    surrounding program — observed 1.5 ulp in-suite vs bit-equal solo)."""
+    surrounding program — observed 1.5 ulp in-suite vs bit-equal solo).
+    The data come from a generator of their own, so they do not depend on
+    which tests ran before this one in the same worker."""
     from lstm_unet_tpu.io.preprocess import integer_percentile_bounds
 
+    rng = np.random.default_rng(0)
     for shape, hi in (((64, 64), 60000), ((30, 29), 65535), ((128, 64), 255)):
         x = rng.integers(0, hi, shape).astype(np.uint16)
         lo_h, hi_h = integer_percentile_bounds(jnp.asarray(x))

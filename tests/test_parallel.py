@@ -48,8 +48,8 @@ def test_sharded_forward_matches_single_device():
 
 
 def test_graft_entry_single_chip_traces():
-    """Trace + lower the flagship entry (execution is the driver's TPU job;
-    running the full-size model on the 1-vCPU CI host would take minutes)."""
+    """Trace + lower the flagship entry (execution belongs on the card;
+    running the full-size model on a CPU test host would take minutes)."""
     import __graft_entry__ as g
 
     fn, args = g.entry()

@@ -1,7 +1,7 @@
 """int8 quantized inference path (ops/quant.py).
 
-SEG-parity on the flagship model is gated on TPU (BASELINE.md); these tests
-pin the numerics and the end-to-end plumbing on CPU.
+SEG-parity on the flagship model is measured on the card; these tests pin
+the numerics and the end-to-end plumbing on CPU.
 """
 
 import glob
@@ -147,7 +147,7 @@ def test_act_scales_provenance_guard(tmp_path):
     from lstm_unet_tpu.engine.infer import load_act_scales, save_act_scales
 
     d = str(tmp_path / "model")
-    os.makedirs(os.path.join(d, "100"))  # orbax step dir
+    os.makedirs(os.path.join(d, "100"))  # checkpoint step dir
     with open(os.path.join(d, "model_params.json"), "w") as f:
         json.dump({"model_config": {"dtype": "float32"}}, f)
 
